@@ -1,13 +1,13 @@
 #!/usr/bin/env python
-"""Kernel microbenchmark: CG tensor-product contractions per second — the
-north-star kernel metric from BASELINE.json.
+"""Conv microbenchmark on a GPU: CG tensor-product contractions per second.
 
-Measures the fused gather -> uvu-TP(+weights) -> mix -> scatter pipeline at
-config_energy's hot-layer shapes, counting one "CG contraction" per
-(edge, path, output component) triple — i.e. the number of weighted
-Clebsch-Gordan product terms evaluated.
+Measures the fused gather -> uvu-TP(+weights) -> mix -> scatter pipeline
+(``FusedUVUConv``, bfloat16 compute) at config_energy's hot-layer shapes,
+counting one "CG contraction" per (edge, path, output component) triple —
+i.e. the number of weighted Clebsch-Gordan product terms evaluated.
 
-Prints one JSON line.
+Prints one JSON line with the device and the card's name and power limit;
+refuses to run without a GPU.
 """
 
 import json
@@ -20,10 +20,16 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    from equivariant_nn_zoo_tpu.nn.pointwise import TensorProductExpansion
-    from equivariant_nn_zoo_tpu.ops import Irreps
-    from equivariant_nn_zoo_tpu.ops.fused_tp import FusedUVUConv
+    from equivariant_nn_zoo.nn.pointwise import TensorProductExpansion
+    from equivariant_nn_zoo.ops import Irreps
+    from equivariant_nn_zoo.ops.fused_tp import FusedUVUConv
+    from equivariant_nn_zoo.utils.device_info import (
+        device_record,
+        gpu_label,
+        require_gpu,
+    )
 
+    require_gpu()
     E, N = 28672, 2048
     feats = Irreps("+".join(f"64x{l}e+64x{l}o" for l in range(4)))
     sh_ir = Irreps("1x0e+1x1o+1x2e")
@@ -59,7 +65,7 @@ def main():
 
     # CG contraction terms per call: sum over paths of mul * d1*d2*d3
     terms = 0
-    from equivariant_nn_zoo_tpu.ops.wigner import wigner_3j
+    from equivariant_nn_zoo.ops.wigner import wigner_3j
 
     for ins in tpe.tp.instructions:
         l1 = tpe.tp.irreps_in1[ins.i_in1].ir.l
@@ -69,13 +75,14 @@ def main():
     contractions_per_sec = E * terms / dt
     print(json.dumps({
         "metric": "cg_tensor_product_contractions",
-        "value": round(contractions_per_sec / 1e9, 3),
+        "value": contractions_per_sec / 1e9,
         "unit": "G contractions/sec",
-        "vs_baseline": None,
         "detail": {
             "edges": E, "paths": len(tpe.tp.instructions),
-            "terms_per_edge": terms, "ms_per_call": round(dt * 1e3, 3),
+            "terms_per_edge": terms, "ms_per_call": dt * 1e3,
         },
+        "device": device_record(),
+        "gpu": gpu_label(),
     }))
 
 

@@ -26,7 +26,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from equivariant_nn_zoo_tpu.data.batch import Batch  # noqa: E402
+from equivariant_nn_zoo.data.batch import Batch  # noqa: E402
 
 # AF2 atom37 indices for the backbone atoms the reference extracts
 ATOM37_INDEX = {"N": 0, "CA": 1, "C": 2, "CB": 3, "O": 4}

@@ -22,8 +22,8 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from equivariant_nn_zoo_tpu.data.batch import Batch  # noqa: E402
-from equivariant_nn_zoo_tpu.utils.saveload import AA_CODES  # noqa: E402
+from equivariant_nn_zoo.data.batch import Batch  # noqa: E402
+from equivariant_nn_zoo.utils.saveload import AA_CODES  # noqa: E402
 
 
 # three-letter -> index codification (matches the saveProtein order)

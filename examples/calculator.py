@@ -17,7 +17,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 
 class E3Calculator:
-    """ASE-style calculator backed by an equivariant_nn_zoo_tpu model.
+    """ASE-style calculator backed by an equivariant_nn_zoo model.
 
     Example:
         calc = E3Calculator.from_config('config_energy', params)
@@ -36,7 +36,7 @@ class E3Calculator:
         self.node_capacity = node_capacity
         self.edge_capacity = edge_capacity
 
-        from equivariant_nn_zoo_tpu.data.compute_edge import radius_graph_fixed
+        from equivariant_nn_zoo.data.compute_edge import radius_graph_fixed
 
         def potential(params, pos, species, node_mask, node_segment):
             import jax.numpy as jnp
@@ -78,8 +78,8 @@ class E3Calculator:
     def from_config(cls, config_name, params=None, model_path=None, **kwargs):
         import jax
 
-        from equivariant_nn_zoo_tpu.models import get_config
-        from equivariant_nn_zoo_tpu.utils import build
+        from equivariant_nn_zoo.models import get_config
+        from equivariant_nn_zoo.utils import build
 
         cfg = get_config(config_name)
         model = build(cfg.model_config)
@@ -87,7 +87,7 @@ class E3Calculator:
         if hasattr(model, "func"):
             model = model.func
         if params is None and model_path:
-            from equivariant_nn_zoo_tpu.utils.saveload import load_file
+            from equivariant_nn_zoo.utils.saveload import load_file
 
             params = load_file(model_path, enforced_format="pickle")
             if "func" in params and hasattr(model, "layers"):

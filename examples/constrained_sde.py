@@ -19,20 +19,20 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from equivariant_nn_zoo_tpu.data import (
+    from equivariant_nn_zoo.data import (
         Batch,
         Data,
         GraphBatch,
         computeEdgeIndex,
     )
-    from equivariant_nn_zoo_tpu.models import get_config
-    from equivariant_nn_zoo_tpu.run.sde_sampling import (
+    from equivariant_nn_zoo.models import get_config
+    from equivariant_nn_zoo.run.sde_sampling import (
         get_corrector,
         get_pc_sampler,
         get_predictor,
     )
-    from equivariant_nn_zoo_tpu.run.sde_utils import VPSDE, get_score_fn
-    from equivariant_nn_zoo_tpu.utils import build
+    from equivariant_nn_zoo.run.sde_utils import VPSDE, get_score_fn
+    from equivariant_nn_zoo.utils import build
 
     rng = np.random.default_rng(0)
     cfg = get_config("config_diffusion")

@@ -16,8 +16,8 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from equivariant_nn_zoo_tpu.data.batch import Batch
-from equivariant_nn_zoo_tpu.data.dataset import CondensedDataset
+from equivariant_nn_zoo.data.batch import Batch
+from equivariant_nn_zoo.data.dataset import CondensedDataset
 
 
 def convert_qm9(npz_path, out_path):

@@ -17,7 +17,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from equivariant_nn_zoo_tpu.ops import Irreps, irreps_d, rand_matrix
+from equivariant_nn_zoo.ops import Irreps, irreps_d, rand_matrix
 
 
 def infer_change_of_basis(samples_in, samples_out, irreps):

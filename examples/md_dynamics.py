@@ -8,7 +8,7 @@ The reference notebook wires its model into torchmd's Integrator as an
 external force term and steps Langevin dynamics; here the WHOLE Verlet step
 (radius graph + model + force grad + position/velocity update) is one jitted
 device call, and ``steps_per_block`` inner steps run under ``lax.fori_loop``
-so a block is a single dispatch (TPU-first: no per-step host round trip).
+so a block is a single dispatch (no per-step host round trip).
 
 Usage:
     python examples/md_dynamics.py [--config config_energy]

@@ -1,6 +1,6 @@
 """Inference CLI — batch-evaluate a trained model and dump outputs to HDF5.
 
-Reference parity: /root/reference/inference.py (C28 in SURVEY.md §2).
+Reference parity: the reference inference.py (C28 in SURVEY.md §2).
 """
 
 import logging
@@ -26,12 +26,16 @@ FLAGS = flags.FLAGS
 def evaluate(argv):
     import jax
 
-    from equivariant_nn_zoo_tpu import models as configs
-    from equivariant_nn_zoo_tpu.data.batch import Batch
-    from equivariant_nn_zoo_tpu.data.dataloader import DataLoader
-    from equivariant_nn_zoo_tpu.data.dataset import CondensedDataset
-    from equivariant_nn_zoo_tpu.utils import build, pruneArgs
-    from equivariant_nn_zoo_tpu.utils.saveload import load_file
+    from equivariant_nn_zoo.utils.compile_cache import setup_compile_cache
+
+    setup_compile_cache()
+
+    from equivariant_nn_zoo import models as configs
+    from equivariant_nn_zoo.data.batch import Batch
+    from equivariant_nn_zoo.data.dataloader import DataLoader
+    from equivariant_nn_zoo.data.dataset import CondensedDataset
+    from equivariant_nn_zoo.utils import build, pruneArgs
+    from equivariant_nn_zoo.utils.saveload import load_file
 
     logging.basicConfig(level=getattr(logging, FLAGS.verbose.upper(),
                                       logging.INFO))

@@ -49,7 +49,7 @@ if [[ -z "$QM9_NPZ" ]]; then
     python - "$DATA" <<'EOF'
 import sys
 import numpy as np
-from equivariant_nn_zoo_tpu.data.batch import Batch
+from equivariant_nn_zoo.data.batch import Batch
 
 rng = np.random.default_rng(0)
 E_SP = {1: -16.4, 6: -1036.0, 7: -1489.0, 8: -2047.0}

@@ -5,13 +5,13 @@ import numpy as np
 import h5py
 import pytest
 
-from equivariant_nn_zoo_tpu.data import Batch, Data
-from equivariant_nn_zoo_tpu.data.dataloader import (
+from equivariant_nn_zoo.data import Batch, Data
+from equivariant_nn_zoo.data.dataloader import (
     DataLoader,
     estimate_capacities,
     shard_paths,
 )
-from equivariant_nn_zoo_tpu.data.dataset import CondensedDataset
+from equivariant_nn_zoo.data.dataset import CondensedDataset
 
 
 RNG = np.random.default_rng(9)
@@ -152,7 +152,7 @@ def test_loader_workers_match_serial(tmp_path):
     (e3_layers/run/trainer.py:286-299)."""
     from functools import partial
 
-    from equivariant_nn_zoo_tpu.data.compute_edge import computeEdgeIndex
+    from equivariant_nn_zoo.data.compute_edge import computeEdgeIndex
 
     write_file(tmp_path / "a.hdf5", n_mols=12)
     kw = dict(path=str(tmp_path / "a.hdf5"),
@@ -189,7 +189,7 @@ def test_graphbatch_wire_roundtrip():
     import jax
     import jax.numpy as jnp
 
-    from equivariant_nn_zoo_tpu.data import GraphBatch
+    from equivariant_nn_zoo.data import GraphBatch
 
     items = []
     for _ in range(4):

@@ -1,11 +1,11 @@
-"""Fused MXU conv path vs the reference per-path einsum implementation."""
+"""Fused conv path vs the reference per-path einsum implementation."""
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
 
-from equivariant_nn_zoo_tpu.nn.message_passing import FactorizedConvolution
+from equivariant_nn_zoo.nn.message_passing import FactorizedConvolution
 
 
 KW = dict(
@@ -84,7 +84,7 @@ def test_fused_gradients_match():
 
 def test_fused_reduce_false_matches_unfused():
     """The Pairwise head's per-edge conv (reduce=False) now rides the fused
-    MXU path; it must match the per-path einsum path on the edge output."""
+    path; it must match the per-path einsum path on the edge output."""
     kw = dict(KW, use_sc=False, node_attrs=None, avg_num_neighbors=1,
               reduce=False)
     conv_f = FactorizedConvolution(**kw, fused=True, compute_dtype="float32")
@@ -112,8 +112,8 @@ def test_m_cache_keys_by_structure_and_survives_concurrent_traces():
     aliasing), including when the traces run on concurrent threads."""
     import threading
 
-    from equivariant_nn_zoo_tpu.nn.message_passing import FactorizedConvolution
-    from equivariant_nn_zoo_tpu.ops.fused_tp import FusedUVUConv
+    from equivariant_nn_zoo.nn.message_passing import FactorizedConvolution
+    from equivariant_nn_zoo.ops.fused_tp import FusedUVUConv
 
     def make_conv(out_spec):
         kw = dict(KW)

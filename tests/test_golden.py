@@ -30,13 +30,13 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from equivariant_nn_zoo_tpu.ops.irreps import Irreps
-from equivariant_nn_zoo_tpu.ops.spherical_harmonics import spherical_harmonics
-from equivariant_nn_zoo_tpu.ops.tensor_product import (
+from equivariant_nn_zoo.ops.irreps import Irreps
+from equivariant_nn_zoo.ops.spherical_harmonics import spherical_harmonics
+from equivariant_nn_zoo.ops.tensor_product import (
     Linear,
     fully_connected_tp,
 )
-from equivariant_nn_zoo_tpu.ops.wigner import wigner_3j
+from equivariant_nn_zoo.ops.wigner import wigner_3j
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "ops_golden.npz")
 

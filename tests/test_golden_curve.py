@@ -58,7 +58,8 @@ def qm9_force_file(tmp_path_factory):
     + 3 sum_{i<j} exp(-d_ij), F_i = -dU/dR_i computed ANALYTICALLY —
     the force labels are the exact negative gradient of the energy
     labels, so a force-training run can only descend if the double-grad
-    path (GradientOutput + grad_order=2 conv kernels) is correct."""
+    path (GradientOutput + the double backward through the convs) is
+    correct."""
     rng = np.random.default_rng(1)
     path = tmp_path_factory.mktemp("data") / "qm9f_tiny.hdf5"
     Rs, Zs, Us, Fs, n_nodes = [], [], [], [], []
@@ -93,14 +94,14 @@ def qm9_force_file(tmp_path_factory):
 
 
 def make_force_trainer(qm9_force_file, workdir, max_epochs=4):
-    from equivariant_nn_zoo_tpu.data.compute_edge import computeEdgeIndex
-    from equivariant_nn_zoo_tpu.data.dataset import CondensedDataset
-    from equivariant_nn_zoo_tpu.models import get_config
-    from equivariant_nn_zoo_tpu.models.layer_configs import (
+    from equivariant_nn_zoo.data.compute_edge import computeEdgeIndex
+    from equivariant_nn_zoo.data.dataset import CondensedDataset
+    from equivariant_nn_zoo.models import get_config
+    from equivariant_nn_zoo.models.layer_configs import (
         addEnergyOutput, addForceOutput, featureModel,
     )
-    from equivariant_nn_zoo_tpu.run import Trainer
-    from equivariant_nn_zoo_tpu.utils import build
+    from equivariant_nn_zoo.run import Trainer
+    from equivariant_nn_zoo.utils import build
 
     cfg = get_config("config_energy")
     key_map = {"Z": ("species", "atom_types"), "R": "pos", "U0": "energy",
@@ -112,7 +113,7 @@ def make_force_trainer(qm9_force_file, workdir, max_epochs=4):
     mc = addEnergyOutput(mc, shifts=[0.0, -16.4, 0, 0, 0, 0, -1036.0,
                                      -1489.0, -2047.0, 0],
                          output_key="energy")
-    mc = addForceOutput(mc)                   # grad_order=2 conv path
+    mc = addForceOutput(mc)                   # double-backward conv path
     model = build(mc)
     ds = CondensedDataset(
         path=qm9_force_file, key_map=key_map,
@@ -140,8 +141,8 @@ def make_force_trainer(qm9_force_file, workdir, max_epochs=4):
 
 # Recorded on the CI platform (CPU backend, float32 — conftest), seed 0,
 # 6 epochs: per-epoch validation forces MAE.  The force path runs the
-# grad_order=2 kernels (apply_grad2 / the fused grad2 backward) — exactly
-# where bf16/adjoint drift would hide (VERDICT r4 weak #5).
+# double backward through every conv — exactly where bf16/adjoint drift
+# would hide.
 GOLDEN_FORCE_MAE = [0.9310, 0.9212, 0.9071, 0.8783, 0.8119, 0.6681]
 FORCE_TOL = 1.15
 
@@ -170,10 +171,10 @@ def _ham_model_config():
     the FULL l_max=4 head (Pairwise -> TensorProductExpansion ->
     TPContraction -> contractBasis) — the head is what this golden
     guards (VERDICT r4 weak #5: the pairwise path is where drift hides)."""
-    from equivariant_nn_zoo_tpu.models.config_hamiltonian import (
+    from equivariant_nn_zoo.models.config_hamiltonian import (
         contractBasis,
     )
-    from equivariant_nn_zoo_tpu.models.layer_configs import (
+    from equivariant_nn_zoo.models.layer_configs import (
         addMatrixOutput, featureModel,
     )
 
@@ -197,10 +198,10 @@ def ham_file(tmp_path_factory):
     check."""
     import jax
 
-    from equivariant_nn_zoo_tpu.data import (
+    from equivariant_nn_zoo.data import (
         Batch, Data, GraphBatch, computeEdgeIndex,
     )
-    from equivariant_nn_zoo_tpu.utils import build
+    from equivariant_nn_zoo.utils import build
 
     teacher = build(_ham_model_config())
     tparams = teacher.init(jax.random.PRNGKey(42))
@@ -254,10 +255,10 @@ HAM_TOL = 1.15
 def test_hamiltonian_learning_curve_golden(ham_file, tmp_path):
     from functools import partial as _partial
 
-    from equivariant_nn_zoo_tpu.data.compute_edge import computeEdgeIndex
-    from equivariant_nn_zoo_tpu.data.dataset import CondensedDataset
-    from equivariant_nn_zoo_tpu.run import Trainer
-    from equivariant_nn_zoo_tpu.utils import build, default_type_names
+    from equivariant_nn_zoo.data.compute_edge import computeEdgeIndex
+    from equivariant_nn_zoo.data.dataset import CondensedDataset
+    from equivariant_nn_zoo.run import Trainer
+    from equivariant_nn_zoo.utils import build, default_type_names
 
     model = build(_ham_model_config())
     key_map = {"Z": ("species", "atom_types"), "R": "pos"}

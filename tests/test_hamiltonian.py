@@ -7,13 +7,13 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from equivariant_nn_zoo_tpu.data import Batch, Data, GraphBatch, computeEdgeIndex
-from equivariant_nn_zoo_tpu.models import get_config
-from equivariant_nn_zoo_tpu.models.config_hamiltonian import (
+from equivariant_nn_zoo.data import Batch, Data, GraphBatch, computeEdgeIndex
+from equivariant_nn_zoo.models import get_config
+from equivariant_nn_zoo.models.config_hamiltonian import (
     orca_transform_matrix,
 )
-from equivariant_nn_zoo_tpu.ops import Irreps, irreps_d, rand_matrix
-from equivariant_nn_zoo_tpu.utils import build
+from equivariant_nn_zoo.ops import Irreps, irreps_d, rand_matrix
+from equivariant_nn_zoo.utils import build
 
 
 RNG = np.random.default_rng(11)

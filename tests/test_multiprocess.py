@@ -29,11 +29,11 @@ from absl import app, flags
 
 sys.path.insert(0, {repo!r})
 import train
-from equivariant_nn_zoo_tpu.models import config_energy, register_config
+from equivariant_nn_zoo.models import config_energy, register_config
 
 
 def tiny(spec=None):
-    from equivariant_nn_zoo_tpu.models.layer_configs import (
+    from equivariant_nn_zoo.models.layer_configs import (
         addEnergyOutput, featureModel,
     )
 
@@ -45,8 +45,7 @@ def tiny(spec=None):
     cfg.model_config = addEnergyOutput(mc, shifts=[0.0] * 10)
     cfg.batch_size = 8
     cfg.max_epochs = 2
-    with cfg.data_config.ignore_type():
-        cfg.data_config.path = list(os.environ["E3_TEST_SHARDS"].split(","))
+    cfg.data_config.path = list(os.environ["E3_TEST_SHARDS"].split(","))
     cfg.data_config.n_train = 24
     cfg.data_config.n_val = 8
     cfg.data_config.train_val_split = "sequential"

@@ -6,15 +6,15 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from equivariant_nn_zoo_tpu.data import (
+from equivariant_nn_zoo.data import (
     Batch,
     Data,
     GraphBatch,
     computeEdgeIndex,
 )
-from equivariant_nn_zoo_tpu.models import get_config
-from equivariant_nn_zoo_tpu.models.layer_configs import addForceOutput
-from equivariant_nn_zoo_tpu.nn import (
+from equivariant_nn_zoo.models import get_config
+from equivariant_nn_zoo.models.layer_configs import addForceOutput
+from equivariant_nn_zoo.nn import (
     Broadcast,
     OneHotEncoding,
     PointwiseLinear,
@@ -22,8 +22,8 @@ from equivariant_nn_zoo_tpu.nn import (
     RadialBasisEncoding,
     SphericalEncoding,
 )
-from equivariant_nn_zoo_tpu.ops import Irreps, irreps_d, rand_matrix
-from equivariant_nn_zoo_tpu.utils import build
+from equivariant_nn_zoo.ops import Irreps, irreps_d, rand_matrix
+from equivariant_nn_zoo.utils import build
 
 
 RNG = np.random.default_rng(7)
@@ -258,7 +258,7 @@ def test_tpe_mid_fused_expand_matches_tp_then_linear():
     import jax.numpy as jnp
     import numpy as np
 
-    from equivariant_nn_zoo_tpu.nn.pointwise import TensorProductExpansion
+    from equivariant_nn_zoo.nn.pointwise import TensorProductExpansion
 
     ir = "8x0e+8x0o+8x1e+8x1o+8x2e"
     tpe = TensorProductExpansion(ir, ir, ir, "uvu")

@@ -9,7 +9,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from equivariant_nn_zoo_tpu.ops import (
+from equivariant_nn_zoo.ops import (
     Irrep,
     Irreps,
     Linear,
@@ -25,7 +25,7 @@ from equivariant_nn_zoo_tpu.ops import (
     wigner_d,
     segment_sum,
 )
-from equivariant_nn_zoo_tpu.ops.wigner import so3_generators
+from equivariant_nn_zoo.ops.wigner import so3_generators
 
 
 RNG = np.random.default_rng(42)
@@ -252,7 +252,7 @@ def test_segment_sum_static():
 def test_linear_grouped_lowering_matches_loop():
     """The batched-by-degree Linear fast path is numerically identical to
     the per-path loop (and actually engages on the standard layouts)."""
-    from equivariant_nn_zoo_tpu.ops.tensor_product import Linear
+    from equivariant_nn_zoo.ops.tensor_product import Linear
 
     rng = np.random.default_rng(0)
     cases = [
@@ -285,8 +285,8 @@ def test_linear_grouped_lowering_matches_loop():
 
 
 def test_norm_activation_run_merging_matches_per_slot():
-    from equivariant_nn_zoo_tpu.ops.gate import NormActivation
-    from equivariant_nn_zoo_tpu.ops.irreps import Irreps
+    from equivariant_nn_zoo.ops.gate import NormActivation
+    from equivariant_nn_zoo.ops.irreps import Irreps
 
     rng = np.random.default_rng(1)
     ir = Irreps("16x0e+16x0o+8x1e+8x1o+4x2e")
@@ -311,7 +311,7 @@ def test_norm_activation_run_merging_matches_per_slot():
 def test_gate_fused_lowering_matches_loop():
     """Gate's fused lowering (merged scalar runs + one-hot gate-expansion
     matmul) must match the per-slot reference loop exactly."""
-    from equivariant_nn_zoo_tpu.ops.gate import Gate, activations
+    from equivariant_nn_zoo.ops.gate import Gate, activations
 
     rng = np.random.default_rng(3)
     g = Gate(

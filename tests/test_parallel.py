@@ -7,8 +7,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from equivariant_nn_zoo_tpu.parallel import make_mesh
-from equivariant_nn_zoo_tpu.parallel.data_parallel import (
+from equivariant_nn_zoo.parallel import make_mesh
+from equivariant_nn_zoo.parallel.data_parallel import (
     put_sharded,
     stack_shards,
 )
@@ -34,14 +34,14 @@ def test_trainer_with_mesh(tmp_path):
 
     import h5py
 
-    from equivariant_nn_zoo_tpu.data.compute_edge import computeEdgeIndex
-    from equivariant_nn_zoo_tpu.data.dataset import CondensedDataset
-    from equivariant_nn_zoo_tpu.models.layer_configs import (
+    from equivariant_nn_zoo.data.compute_edge import computeEdgeIndex
+    from equivariant_nn_zoo.data.dataset import CondensedDataset
+    from equivariant_nn_zoo.models.layer_configs import (
         addEnergyOutput,
         featureModel,
     )
-    from equivariant_nn_zoo_tpu.run import Trainer
-    from equivariant_nn_zoo_tpu.utils import build
+    from equivariant_nn_zoo.run import Trainer
+    from equivariant_nn_zoo.utils import build
 
     rng = np.random.default_rng(0)
     path = tmp_path / "ds.hdf5"
@@ -100,10 +100,10 @@ def test_dp_matches_single_device():
     import optax
 
     import __graft_entry__ as g
-    from equivariant_nn_zoo_tpu.parallel.data_parallel import (
+    from equivariant_nn_zoo.parallel.data_parallel import (
         make_dp_train_step,
     )
-    from equivariant_nn_zoo_tpu.run.loss import Loss
+    from equivariant_nn_zoo.run.loss import Loss
 
     n_dev = 4
     mesh = make_mesh(n_dev)
@@ -152,7 +152,7 @@ def test_dp_matches_single_device():
 
 
 def test_stack_and_put_sharded_roundtrip():
-    from equivariant_nn_zoo_tpu.data import Batch, Data, GraphBatch
+    from equivariant_nn_zoo.data import Batch, Data, GraphBatch
 
     rng = np.random.default_rng(0)
 

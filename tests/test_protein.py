@@ -7,18 +7,18 @@ import jax.numpy as jnp
 import optax
 import pytest
 
-from equivariant_nn_zoo_tpu.data import Batch
-from equivariant_nn_zoo_tpu.data.dataloader import getDataIters
-from equivariant_nn_zoo_tpu.models import get_config
-from equivariant_nn_zoo_tpu.models.protein_utils import crop, masked2indexed
-from equivariant_nn_zoo_tpu.run import sde_utils
-from equivariant_nn_zoo_tpu.run.sde_sampling import (
+from equivariant_nn_zoo.data import Batch
+from equivariant_nn_zoo.data.dataloader import getDataIters
+from equivariant_nn_zoo.models import get_config
+from equivariant_nn_zoo.models.protein_utils import crop, masked2indexed
+from equivariant_nn_zoo.run import sde_utils
+from equivariant_nn_zoo.run.sde_sampling import (
     get_corrector,
     get_pc_sampler,
     get_predictor,
 )
-from equivariant_nn_zoo_tpu.utils import build
-from equivariant_nn_zoo_tpu.utils.saveload import saveProtein
+from equivariant_nn_zoo.utils import build
+from equivariant_nn_zoo.utils.saveload import saveProtein
 
 
 RNG = np.random.default_rng(5)
@@ -52,7 +52,7 @@ def protein_file(tmp_path_factory):
 
 
 def test_masked2indexed_and_crop(protein_file):
-    from equivariant_nn_zoo_tpu.data.dataset import CondensedDataset
+    from equivariant_nn_zoo.data.dataset import CondensedDataset
 
     ds = CondensedDataset(path=protein_file)
     raw = ds.get(0)

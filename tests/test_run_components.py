@@ -5,9 +5,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from equivariant_nn_zoo_tpu.data import Batch
-from equivariant_nn_zoo_tpu.models import CONFIG_REGISTRY, get_config
-from equivariant_nn_zoo_tpu.run import (
+from equivariant_nn_zoo.data import Batch
+from equivariant_nn_zoo.models import CONFIG_REGISTRY, get_config
+from equivariant_nn_zoo.run import (
     EarlyStopping,
     Loss,
     LossStat,
@@ -17,14 +17,14 @@ from equivariant_nn_zoo_tpu.run import (
     SimpleLoss,
     find_loss_function,
 )
-from equivariant_nn_zoo_tpu.utils import build, getScaler, insertAfter, replace
-from equivariant_nn_zoo_tpu.utils.saveload import (
+from equivariant_nn_zoo.utils import build, getScaler, insertAfter, replace
+from equivariant_nn_zoo.utils.saveload import (
     load_file,
     save_file,
     saveMol,
     saveProtein,
 )
-from equivariant_nn_zoo_tpu.utils.statistics import bincount, solver
+from equivariant_nn_zoo.utils.statistics import bincount, solver
 
 
 def test_all_configs_build():
@@ -159,7 +159,7 @@ def test_config_surgery():
 def test_save_load_roundtrip(tmp_path):
     item = {"a": np.arange(3), "b": {"c": 1.5}}
     p = save_file(item, str(tmp_path / "x.pkl"), enforced_format="pickle")
-    from equivariant_nn_zoo_tpu.utils.saveload import finish_all_writes
+    from equivariant_nn_zoo.utils.saveload import finish_all_writes
 
     finish_all_writes()
     back = load_file(p)
@@ -213,7 +213,7 @@ def test_bincount_per_graph():
 
 
 def test_device_scaler_matches_host():
-    from equivariant_nn_zoo_tpu.data import Batch, Data, GraphBatch
+    from equivariant_nn_zoo.data import Batch, Data, GraphBatch
 
     rng = np.random.default_rng(0)
     mols = []

@@ -7,26 +7,26 @@ import jax.numpy as jnp
 import optax
 import pytest
 
-from equivariant_nn_zoo_tpu.data import (
+from equivariant_nn_zoo.data import (
     Batch,
     Data,
     GraphBatch,
     computeEdgeIndex,
     radius_graph_fixed,
 )
-from equivariant_nn_zoo_tpu.models import get_config
-from equivariant_nn_zoo_tpu.run.sde_sampling import (
+from equivariant_nn_zoo.models import get_config
+from equivariant_nn_zoo.run.sde_sampling import (
     get_corrector,
     get_pc_sampler,
     get_predictor,
 )
-from equivariant_nn_zoo_tpu.run.sde_utils import (
+from equivariant_nn_zoo.run.sde_utils import (
     VPSDE,
     get_sde_loss_fn,
     get_step_fn,
     init_sde_state,
 )
-from equivariant_nn_zoo_tpu.utils import build
+from equivariant_nn_zoo.utils import build
 
 
 RNG = np.random.default_rng(3)
@@ -185,7 +185,7 @@ def test_radius_graph_fixed_matches_host():
 
 
 def test_ode_sampler(diffusion_model):
-    from equivariant_nn_zoo_tpu.run.sde_sampling import get_ode_sampler
+    from equivariant_nn_zoo.run.sde_sampling import get_ode_sampler
 
     cfg, model, params = diffusion_model
     sde = VPSDE(dict(cfg.diffusion_keys), N=50)
@@ -206,7 +206,7 @@ def test_ode_sampler(diffusion_model):
 
 def test_sde_checkpoint_resume(diffusion_model, tmp_path):
     """Diffusion state save/restore: params, EMA, step, rng survive."""
-    from equivariant_nn_zoo_tpu.utils.saveload import (
+    from equivariant_nn_zoo.utils.saveload import (
         finish_all_writes,
         restore_checkpoint,
         save_checkpoint,

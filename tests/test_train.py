@@ -11,11 +11,11 @@ import numpy as np
 import jax
 import pytest
 
-from equivariant_nn_zoo_tpu.data.compute_edge import computeEdgeIndex
-from equivariant_nn_zoo_tpu.data.dataset import CondensedDataset
-from equivariant_nn_zoo_tpu.models import get_config
-from equivariant_nn_zoo_tpu.run import Trainer
-from equivariant_nn_zoo_tpu.utils import build
+from equivariant_nn_zoo.data.compute_edge import computeEdgeIndex
+from equivariant_nn_zoo.data.dataset import CondensedDataset
+from equivariant_nn_zoo.models import get_config
+from equivariant_nn_zoo.run import Trainer
+from equivariant_nn_zoo.utils import build
 
 
 E_SPECIES = {1: -16.4, 6: -1036.0, 7: -1489.0, 8: -2047.0}
@@ -58,7 +58,7 @@ def make_trainer(qm9_file, workdir, num_layers=1, n_dim=8, max_epochs=2,
     cfg.data_config.key_map = {
         "Z": ("species", "atom_types"), "R": "pos", "U0": "total_energy",
     }
-    from equivariant_nn_zoo_tpu.models.layer_configs import (
+    from equivariant_nn_zoo.models.layer_configs import (
         addEnergyOutput, featureModel,
     )
 
@@ -133,7 +133,7 @@ def test_grad_acc_matches_large_batch(qm9_file, tmp_path):
     """Regression-path gradient accumulation (reference README.md:154):
     K accumulated micro-batches must produce the same update (params AND
     EMA) as one K-times-larger batch, given equal real-graph counts."""
-    from equivariant_nn_zoo_tpu.data import Batch, GraphBatch
+    from equivariant_nn_zoo.data import Batch, GraphBatch
 
     tr_a = make_trainer(qm9_file, tmp_path / "wa", grad_acc=2)
     tr_b = make_trainer(qm9_file, tmp_path / "wb")
@@ -179,7 +179,7 @@ def test_resume_restores_state(qm9_file, tmp_path):
     tr.init_metrics()
     tr.epoch_step()
     tr.save()
-    from equivariant_nn_zoo_tpu.utils.saveload import finish_all_writes
+    from equivariant_nn_zoo.utils.saveload import finish_all_writes
 
     finish_all_writes()
     epoch_before = tr.iepoch
@@ -206,7 +206,7 @@ def test_refuse_resume_after_stop(qm9_file, tmp_path):
     tr.train()
     assert tr.stop_arg == "max epochs"
     tr.save()
-    from equivariant_nn_zoo_tpu.utils.saveload import finish_all_writes
+    from equivariant_nn_zoo.utils.saveload import finish_all_writes
 
     finish_all_writes()
     with pytest.raises(RuntimeError, match="properly stopped"):
@@ -271,8 +271,8 @@ def test_train_cli_dp_mesh(qm9_file, tmp_path):
     from types import SimpleNamespace
 
     import train as train_cli
-    from equivariant_nn_zoo_tpu.models import get_config as get_cfg
-    from equivariant_nn_zoo_tpu.models.layer_configs import (
+    from equivariant_nn_zoo.models import get_config as get_cfg
+    from equivariant_nn_zoo.models.layer_configs import (
         addEnergyOutput, featureModel,
     )
 
@@ -344,8 +344,8 @@ def test_train_cli_diffusion_driver(tmp_path):
     from types import SimpleNamespace
 
     import train as train_cli
-    from equivariant_nn_zoo_tpu.data import Batch
-    from equivariant_nn_zoo_tpu.models import get_config as get_cfg
+    from equivariant_nn_zoo.data import Batch
+    from equivariant_nn_zoo.models import get_config as get_cfg
 
     rng = np.random.default_rng(7)
     prot = tmp_path / "pdb_0.hdf5"
@@ -370,7 +370,7 @@ def test_train_cli_diffusion_driver(tmp_path):
 
     sde_cfg = tmp_path / "sde_tiny.py"
     sde_cfg.write_text(
-        "from equivariant_nn_zoo_tpu.models.sde_config import get_config as g\n"
+        "from equivariant_nn_zoo.models.sde_config import get_config as g\n"
         "def get_config():\n"
         "    c = g()\n"
         "    c.training.n_iters = 4\n"

@@ -1,10 +1,10 @@
 """Training CLI — same flag surface as the reference train.py.
 
-Reference parity: /root/reference/train.py (C27 in SURVEY.md §2).  Process
-orchestration is TPU-native: instead of mp.spawn + NCCL process groups,
-multi-host runs call ``jax.distributed.initialize`` (coordinator =
-master_addr:master_port) and each process drives its local devices; in-process
-multi-device data parallelism uses the shard_map mesh (parallel/).
+Reference parity: the reference train.py (C27 in SURVEY.md §2).  Process
+orchestration: instead of mp.spawn + NCCL process groups, multi-host runs
+call ``jax.distributed.initialize`` (coordinator = master_addr:master_port)
+and each process drives its local devices; in-process multi-device data
+parallelism uses the shard_map mesh (parallel/).
 """
 
 import logging
@@ -38,8 +38,7 @@ flags.DEFINE_integer("eval_period", 20, "")
 flags.DEFINE_integer("save_period", 2000, "")
 flags.DEFINE_string("platform", None,
                     "Force a jax platform (e.g. 'cpu' to exercise the DP "
-                    "mesh on virtual host devices; the TPU plugin ignores "
-                    "the JAX_PLATFORMS env var).")
+                    "mesh on virtual host devices).")
 flags.DEFINE_integer("dp", 0,
                      "In-process data-parallel width (device-mesh shards). "
                      "0 = auto: use every local device when the batch size "
@@ -59,9 +58,9 @@ def setSeed(seed):
 def _make_dp_mesh(batch_size: int, FLAGS):
     """Mesh over this process's local devices for in-process DP.
 
-    The TPU-native analogue of the reference's mp.spawn + DDP wrap
-    (train.py:280-304, trainer.py:138-139): one process drives all local
-    chips; the Trainer shards each batch over the mesh via shard_map.
+    The analogue of the reference's mp.spawn + DDP wrap (train.py:280-304,
+    trainer.py:138-139): one process drives all local devices; the Trainer
+    shards each batch over the mesh via shard_map.
     """
     import jax
 
@@ -76,7 +75,7 @@ def _make_dp_mesh(batch_size: int, FLAGS):
                 f"batch_size {batch_size} not divisible by the {n} local "
                 "devices of this process"
             )
-        from equivariant_nn_zoo_tpu.parallel.mesh import make_mesh
+        from equivariant_nn_zoo.parallel.mesh import make_mesh
 
         mesh = make_mesh(devices=jax.devices())
         logging.info(
@@ -100,7 +99,7 @@ def _make_dp_mesh(batch_size: int, FLAGS):
             batch_size, n,
         )
         return None
-    from equivariant_nn_zoo_tpu.parallel.mesh import make_mesh
+    from equivariant_nn_zoo.parallel.mesh import make_mesh
 
     mesh = make_mesh(n, devices=jax.local_devices()[:n])
     logging.info("data-parallel mesh over %d local devices", n)
@@ -110,14 +109,14 @@ def _make_dp_mesh(batch_size: int, FLAGS):
 def train_regression(config, FLAGS):
     import jax
 
-    from equivariant_nn_zoo_tpu.data.dataloader import shard_paths
-    from equivariant_nn_zoo_tpu.data.dataset import CondensedDataset
-    from equivariant_nn_zoo_tpu.utils import build, pruneArgs
+    from equivariant_nn_zoo.data.dataloader import shard_paths
+    from equivariant_nn_zoo.data.dataset import CondensedDataset
+    from equivariant_nn_zoo.utils import build, pruneArgs
 
     if FLAGS.wandb and jax.process_index() == 0:
-        from equivariant_nn_zoo_tpu.run.trainer import TrainerWandB as Trainer
+        from equivariant_nn_zoo.run.trainer import TrainerWandB as Trainer
     else:
-        from equivariant_nn_zoo_tpu.run.trainer import Trainer
+        from equivariant_nn_zoo.run.trainer import Trainer
 
     trainer_kwargs = dict(config)
     trainer_kwargs.pop("model_config", None)
@@ -162,13 +161,13 @@ def train_diffusion(e3_config, FLAGS):
     import jax
     import optax
 
-    from equivariant_nn_zoo_tpu.data.batch import Batch
-    from equivariant_nn_zoo_tpu.data.dataloader import getDataIters
-    from equivariant_nn_zoo_tpu.run import sde_sampling as sampling
-    from equivariant_nn_zoo_tpu.run import sde_utils
-    from equivariant_nn_zoo_tpu.run.lr_scheduler import ReduceLROnPlateau
-    from equivariant_nn_zoo_tpu.utils import build, pruneArgs
-    from equivariant_nn_zoo_tpu.utils.saveload import (
+    from equivariant_nn_zoo.data.batch import Batch
+    from equivariant_nn_zoo.data.dataloader import getDataIters
+    from equivariant_nn_zoo.run import sde_sampling as sampling
+    from equivariant_nn_zoo.run import sde_utils
+    from equivariant_nn_zoo.run.lr_scheduler import ReduceLROnPlateau
+    from equivariant_nn_zoo.utils import build, pruneArgs
+    from equivariant_nn_zoo.utils.saveload import (
         restore_checkpoint,
         save_checkpoint,
     )
@@ -182,7 +181,7 @@ def train_diffusion(e3_config, FLAGS):
         spec.loader.exec_module(mod)
         sde_config = mod.get_config()
     else:
-        from equivariant_nn_zoo_tpu.models.sde_config import get_config
+        from equivariant_nn_zoo.models.sde_config import get_config
 
         sde_config = get_config()
 
@@ -200,7 +199,7 @@ def train_diffusion(e3_config, FLAGS):
 
     score_model = build(e3_config.model_config)
     params = score_model.init(jax.random.PRNGKey(FLAGS.seed))
-    from equivariant_nn_zoo_tpu.utils import countParameters
+    from equivariant_nn_zoo.utils import countParameters
 
     logging.info(f"Number of parameters {countParameters(params)}.")
 
@@ -348,24 +347,31 @@ def main(argv):
 def run(argv):
     import jax
 
+    from equivariant_nn_zoo.utils.compile_cache import setup_compile_cache
+
+    setup_compile_cache()
+
     if FLAGS.platform:
-        try:
-            jax.config.update("jax_platforms", FLAGS.platform)
-        except Exception as e:  # backend already initialized
-            logging.warning("could not force platform %s: %s",
-                            FLAGS.platform, e)
+        jax.config.update("jax_platforms", FLAGS.platform)
     if FLAGS.world_size > 1:
-        try:
-            # CPU multi-process needs the gloo collectives backend (no-op /
-            # unavailable-config on TPU builds, where ICI is the transport)
-            jax.config.update("jax_cpu_collectives_implementation", "gloo")
-        except Exception:
-            pass
+        # CPU processes need the gloo collectives; GPU processes use NCCL
+        # and ignore this setting
+        jax.config.update("jax_cpu_collectives_implementation", "gloo")
         jax.distributed.initialize(
             coordinator_address=f"{FLAGS.master_addr}:{FLAGS.master_port}",
             num_processes=FLAGS.world_size,
             process_id=FLAGS.process_id,
         )
+    if FLAGS.platform:
+        # the first device query initializes the backend: after
+        # jax.distributed.initialize, which must come before it
+        platform = jax.devices()[0].platform
+        if platform != {"cuda": "gpu", "rocm": "gpu"}.get(FLAGS.platform,
+                                                          FLAGS.platform):
+            raise RuntimeError(
+                f"--platform={FLAGS.platform} could not be applied: the "
+                f"backend already runs on {platform}"
+            )
 
     FLAGS.workdir = os.path.join(FLAGS.workdir, FLAGS.project, FLAGS.name)
     os.makedirs(FLAGS.workdir, exist_ok=True)
@@ -378,7 +384,7 @@ def run(argv):
                                                    "stdout.txt"))
         logging.getLogger().addHandler(handler)
 
-    from equivariant_nn_zoo_tpu import models as configs
+    from equivariant_nn_zoo import models as configs
 
     config = configs.get_config(FLAGS.config, FLAGS.config_spec or None)
 
